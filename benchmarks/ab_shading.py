@@ -1,5 +1,5 @@
 """EP-analog A/B (VERDICT r2 item 7, SURVEY §2.7 EP row): is material
-binning worth anything on TPU, or is the branch-free BSDF switch right?
+binning worth anything on the GPU, or is the branch-free BSDF switch right?
 
 The branch-free switch (bsdf.sample_lane / eval_lane / pdf_lane)
 computes every BSDF family's arithmetic on every lane and selects by
@@ -15,9 +15,9 @@ sort + padded per-family segments).  So the A/B reduces to two numbers:
 
 If (1)'s delta is a small fraction of (2), binning cannot pay for its
 sort/padding no matter how it is implemented, and the branch-free
-switch is the right TPU design.
+switch is the right design.
 
-Run: python benchmarks/ab_shading.py  (TPU or CPU)
+Run: python benchmarks/ab_shading.py  (GPU or CPU)
 """
 from __future__ import annotations
 

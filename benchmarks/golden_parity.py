@@ -23,7 +23,7 @@ see PARITY_IMAGES.md for the table):
     NOT used as goldens.
 
 Run: python benchmarks/golden_parity.py [--res-div 4] [--spp 64]
-(on the TPU; CPU works but is slow).
+(on the GPU; CPU works but is slow).
 """
 from __future__ import annotations
 

@@ -62,8 +62,8 @@ def main():
     inf = jnp.inf
     f = jax.jit(lambda o, d: rep_closest(trace_closest, scene, o, d, 1e-8,
                                          inf))
-    timed("closest_pallas_coherent_65k", f, o, d)
-    timed("closest_pallas_incoherent_65k", f, p, di)
+    timed("closest_coherent_65k", f, o, d)
+    timed("closest_incoherent_65k", f, p, di)
 
     # shadow-like segments
     tgt = jnp.asarray([[0.0, 1.5, 0.0]], jnp.float32)

@@ -1,6 +1,6 @@
 """Workload statistics: intercept every trace call of a real BDPT sample
 (eager, small res) and report lane liveness + treelet overlap/union stats.
-Informs kernel design (tile size, K, compaction value)."""
+Informs tracer design (tile size, K, value of live-lane compaction)."""
 from __future__ import annotations
 
 import os
@@ -52,10 +52,9 @@ def main():
             tu = m.reshape(-1, tile, mask.shape[1]).any(1).sum(1)
             rec[f"union{tile}_mean"] = float(tu.mean())
             rec[f"union{tile}_max"] = int(tu.max())
-        # Compacted layout (live lanes stably packed to the front, the
-        # ops/compaction.py transform): per-128-tile union over the live
-        # prefix + the all-dead-tile count — the quantities that set the
-        # compacted kernel's runtime.
+        # Compacted layout (live lanes stably packed to the front): the
+        # per-128-tile union over the live prefix + the all-dead-tile
+        # count — what a tracer that skips dead tiles would pay for.
         m_live = mask[live]
         pad = (-len(m_live)) % 128
         m_live = np.concatenate(

@@ -6,7 +6,7 @@ Usage:
 
 Reads the trace-viewer JSON dump (plugins/profile/<ts>/*.trace.json.gz)
 that jax.profiler.trace writes, sums event durations per kernel name on
-the device (TPU/TensorCore) tracks, and prints a ranked table — the
+the GPU device tracks (`/device:GPU:*`), and prints a ranked table — the
 per-kernel view the bench's telescoping stage attribution can't give
 (SURVEY.md §5 "JAX profiler traces + per-kernel timing").
 """
@@ -39,8 +39,7 @@ def summarize(trace, top_n=30):
 
     def is_device(pid):
         n = pid_name.get(pid, "").lower()
-        return ("tpu" in n or "device" in n or "xla" in n
-                or "tensorcore" in n or "/device" in n)
+        return n.startswith("/device:gpu")
 
     total = defaultdict(float)
     count = defaultdict(int)

@@ -1,6 +1,6 @@
-"""bpt_tpu: a TPU-native differentiable bidirectional path tracer.
+"""bpt_tpu: a differentiable bidirectional path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference C++ CPU renderer (JackMinn/Bidirectional-Path-Tracing): full BDPT
 with VCM-style MIS weights, delta BSDFs (perfect mirror, glass), wavefront
 formulation over ray SoA batches, multi-chip sharding via jax.sharding, and

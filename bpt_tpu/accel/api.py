@@ -1,143 +1,25 @@
 """Scene-level tracing dispatch.
 
-Routing (fast path first):
-
-  * TPU + treelet tables fit VMEM: fused Pallas kernels — compact-table
-    closest hit (ops/pallas_trace.py) and per-tile sweep any-hit
-    (ops/pallas_sweep.py), each measured fastest on v5e (r2 A/Bs);
-  * TPU + tables beyond the VMEM budget: HBM-streaming sweep kernels
-    (chunked treelet tables double-buffered through VMEM — the
-    large-scene path, VERDICT r2 item 4b);
-  * otherwise: the XLA tracers (accel/binned.py), falling back to the
-    stackless skip-link tracer (accel/traverse.py, the correctness
-    reference) for scenes without treelet arrays.
-
-All paths implement identical intersection semantics; the test suite
-enforces agreement (tests/test_binned.py, test_pallas.py, test_sweep.py,
-test_compaction.py).
-
-Live-lane compaction (ops/compaction.py) is ON by default since r4: the
-sort-payload rewrite made the partition ~9x cheaper than the r3
-argsort+gather version, and it now wins 24% end-to-end on the caustic
-bench (see _use_compact for the numbers).  BPT_COMPACT=0 disables.
+Scenes built by the assembler carry treelet tables and trace through the
+binned XLA tracers (accel/binned.py); a scene without them falls back to
+the stackless skip-link tracer (accel/traverse.py, the correctness
+reference).  The choice depends on the scene alone.  Both implement
+identical intersection semantics; tests/test_binned.py enforces agreement.
 """
 from __future__ import annotations
 
-import os
-
 from . import binned, traverse
-
-# BPT_PALLAS_TRACE=0 forces the XLA path; =1 forces Pallas (e.g.
-# interpret-mode debugging).
-_PALLAS_ENV = os.environ.get("BPT_PALLAS_TRACE", "")
-# BPT_COMPACT=0/1 forces live-lane compaction off/on.
-_COMPACT_ENV = os.environ.get("BPT_COMPACT", "")
-
-
-def _use_pallas() -> bool:
-    if _PALLAS_ENV in ("0", "1"):
-        return _PALLAS_ENV == "1"
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
-def _use_compact() -> bool:
-    # Default ON since r4: compaction's cost was never the partition (an
-    # argsort of 458k keys is 0.3 ms) but the HBM random row-GATHER of
-    # the ray columns (~18 ms — TPU gather sustains <1 GB/s), which is
-    # why the r3 argsort+take version lost 3.00M vs 4.19M rays/s.  The
-    # r4 rewrite moves the columns as `lax.sort` PAYLOADS through XLA's
-    # sorting network instead (ops/compaction.py): 1.95 ms at 458k
-    # lanes, and the caustic bench gains 4.53M -> 5.62M rays/s
-    # (all_pairs 2.80 -> 2.08 s, walks 2.34 -> 2.00 s at 16 spp).
-    # BPT_COMPACT=0 disables for A/Bs.
-    if _COMPACT_ENV in ("0", "1"):
-        return _COMPACT_ENV == "1"
-    return True
-
-
-def _compacted_closest(fn, tg, o, d, min_t, max_t) -> traverse.Hit:
-    if not _use_compact():
-        return fn(tg, o, d, min_t, max_t)
-    import jax.numpy as jnp
-
-    from ..ops.compaction import compact_rays, uncompact_many
-
-    bounds = None
-    if os.environ.get("BPT_CLUSTER", "1") == "1":
-        import jax.numpy as jnp
-
-        bounds = (jnp.min(tg.bmin, axis=0), jnp.max(tg.bmax, axis=0))
-    o_c, d_c, mn_c, mx_c, plan = compact_rays(o, d, min_t, max_t,
-                                              bounds=bounds, kind="ray")
-    h = fn(tg, o_c, d_c, mn_c, mx_c)
-    t, tri, u, v = uncompact_many(
-        (h.t, h.tri, h.u, h.v), plan, (jnp.inf, -1, 0.0, 0.0))
-    return traverse.Hit(t=t, tri=tri, u=u, v=v, valid=tri >= 0)
-
-
-def _compacted_any(fn, tg, o, d, min_t, max_t):
-    if not _use_compact():
-        return fn(tg, o, d, min_t, max_t)
-    from ..ops.compaction import compact_rays, uncompact
-
-    # Spatial cluster keys (BPT_CLUSTER=0 disables): group live shadow
-    # segments by endpoint cells so per-tile treelet unions shrink —
-    # same single-key sort, no extra cost (ops/compaction.py).
-    bounds = None
-    if os.environ.get("BPT_CLUSTER", "1") == "1":
-        import jax.numpy as jnp
-
-        bounds = (jnp.min(tg.bmin, axis=0), jnp.max(tg.bmax, axis=0))
-    o_c, d_c, mn_c, mx_c, plan = compact_rays(o, d, min_t, max_t,
-                                              bounds=bounds)
-    return uncompact(fn(tg, o_c, d_c, mn_c, mx_c), plan, False)
 
 
 def trace_closest(scene, o, d, min_t, max_t) -> traverse.Hit:
     if getattr(scene, "treelets", None) is not None:
-        if _use_pallas():
-            from ..ops.pallas_trace import fits_vmem, trace_closest_compact
-
-            if fits_vmem(scene.treelets):
-                # Compact-table variant: per-tile union gathered into a
-                # small (U, 9K) table once, then the per-ray front-to-back
-                # loop fetches from it — measured 31%/19% faster than the
-                # full-table one-hot kernel on coherent/incoherent rays
-                # (v5e, r2).
-                return _compacted_closest(trace_closest_compact,
-                                          scene.treelets, o, d, min_t,
-                                          max_t)
-            from ..ops.pallas_sweep import trace_closest_stream
-
-            return _compacted_closest(trace_closest_stream, scene.treelets,
-                                      o, d, min_t, max_t)
         return binned.trace_closest_slots(scene.treelets, o, d, min_t,
                                           max_t)
     return traverse.trace_closest(scene.geom, o, d, min_t, max_t)
 
 
 def trace_any(scene, o, d, min_t, max_t):
-    # Per-tile sweep kernel (ops/pallas_sweep.py) on TPU: exact in-VMEM
-    # masks + per-tile early exit beat the XLA tile-sweep (which pays
-    # max-over-ALL-tiles union iterations) 3.2x on the all-pairs
-    # occlusion workload (measured v5e, K=128 table, r2 sweeps).  A
-    # one-hot-matmul any-hit kernel was measured and removed in r2 —
-    # its fetch costs O(NT*9K) MXU work per iteration and lost to both.
     if getattr(scene, "treelets", None) is not None:
         tg = getattr(scene, "treelets_any", None) or scene.treelets
-        if _use_pallas():
-            from ..ops.pallas_sweep import (
-                fits_vmem as sweep_fits,
-                trace_any_stream,
-                trace_any_sweep,
-            )
-
-            if sweep_fits(tg):
-                return _compacted_any(trace_any_sweep, tg, o, d, min_t,
-                                      max_t)
-            return _compacted_any(trace_any_stream, tg, o, d, min_t,
-                                  max_t)
         return binned.trace_any_binned(tg, o, d, min_t, max_t)
     return traverse.trace_any(scene.geom, o, d, min_t, max_t)

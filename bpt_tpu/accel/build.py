@@ -1,6 +1,6 @@
-"""Host-side BVH builder producing flat, array-encoded nodes for TPU traversal.
+"""Host-side BVH builder producing flat, array-encoded nodes for batched traversal.
 
-Design (SURVEY.md section 2.2 "TPU equivalent"): a binary BVH with midpoint
+Design (SURVEY.md section 2.2): a binary BVH with midpoint
 splits on the longest centroid-extent axis and leaf size 4, matching the
 behavior of the reference's vendored Fast-BVH (reference: externals/bvh.h:
 121, 149-241) -- but emitted as a *threaded* (skip-link) flat array so that
@@ -53,23 +53,21 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     reference's builder); "sah" is the binned surface-area-heuristic
     build -- identical intersection RESULTS (hit semantics are
     structure-independent) but tighter boxes, which lowers per-ray
-    treelet overlap counts and therefore both Pallas tracers' iteration
+    treelet overlap counts and therefore the binned tracers' iteration
     counts.
 
-    Uses the native C++ builder (bpt_tpu/native) when its shared library is
-    built -- it produces an identical FlatBVH; otherwise the numpy preorder
+    Uses the native C++ builder (bpt_tpu/native, compiled from source at
+    first use) -- it produces an identical FlatBVH; without a C++ compiler
+    the numpy preorder
     recursive construction below (per-node work vectorized over the node's
     primitive slice, O(T log T) total).
     """
     if use_native and method == "midpoint":
-        try:
-            from ..native.native import build_bvh_native
+        from ..native.native import build_bvh_native
 
-            native = build_bvh_native(v0, v1, v2)
-            if native is not None:
-                return native
-        except Exception:
-            pass
+        native = build_bvh_native(v0, v1, v2)
+        if native is not None:
+            return native
     t = v0.shape[0]
     lo = np.minimum(np.minimum(v0, v1), v2).astype(np.float64)
     hi = np.maximum(np.maximum(v0, v1), v2).astype(np.float64)

@@ -13,9 +13,8 @@ Intersection semantics replicate the reference exactly:
     (reference: externals/bvh.h:261-277 as modified by the author);
   * any-hit mode for visibility queries (reference: bdpt.h:498-514).
 
-This is the correctness/reference path; the Pallas TPU kernel in
-bpt_tpu/ops/pallas_trace.py implements the same algorithm with the scene
-resident in VMEM.
+This is the correctness/reference path; the binned tracers in
+accel/binned.py implement the same semantics over treelet blocks.
 """
 from __future__ import annotations
 

@@ -1,12 +1,9 @@
 """Treelet (two-level) decomposition of the flat BVH for dense traversal.
 
-TPU rationale (SURVEY.md section 2.2): XLA per-lane gathers run ~100x
-slower than dense vector math on TPU, so instead of per-ray pointer chasing
-the fast tracer (accel/binned.py) tests rays against ALL treelet AABBs
-densely (a (B, NT) slab matrix is nearly free on the VPU), then sweeps each
-ray tile over its union of overlapped treelets, fetching each treelet's
-fixed-size triangle block by *scalar* index (a dynamic-slice, which is
-fast) and intersecting densely.
+Instead of per-ray pointer chasing, the binned tracers (accel/binned.py)
+test rays against ALL treelet AABBs densely (a (B, NT) slab matrix), then
+fetch whole fixed-size triangle blocks of the overlapped treelets and
+intersect them densely (SURVEY.md section 2.2).
 
 A treelet is a BVH subtree whose primitives span a contiguous range of <=
 TREELET_SIZE triangles in BVH order (subtree ranges are contiguous by

@@ -3,7 +3,7 @@
 The reference dispatches through virtual calls on per-material BSDF objects
 (reference: src/core/core.h:256-318, src/bsdfs/*.h).  Here all five models
 are evaluated as branch-free vector math over a (B,)-batch of shading points
-and the result is selected by the per-lane material `kind` -- the TPU-native
+and the result is selected by the per-lane material `kind` -- the wavefront
 "expert routing" for materials (SURVEY.md section 2.7, EP row).  The extra
 arithmetic for non-selected lobes is negligible next to BVH traversal.
 

@@ -24,7 +24,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from .math import DEG2RAD
+from .math import DEG2RAD, mat_vec
 
 
 def look_at(eye, center, up):
@@ -157,7 +157,7 @@ def generate_rays(cam_consts, width, height, pixel_idx, jitter=None):
     local = jnp.stack(
         [x * angle * aspect, y * angle, -jnp.ones_like(x)], axis=-1
     )
-    d = jnp.einsum("ij,...j->...i", cam_consts["rot_t"], local)
+    d = mat_vec(cam_consts["rot_t"], local)
     d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
     o = jnp.broadcast_to(cam_consts["o"], d.shape)
     return o, d
@@ -171,7 +171,7 @@ def splat_to_image_plane(cam_consts, width, height, p):
     """
     vp = cam_consts["view_proj"]
     ph = jnp.concatenate([p, jnp.ones_like(p[..., :1])], axis=-1)
-    clip = jnp.einsum("ij,...j->...i", vp, ph)
+    clip = mat_vec(vp, ph)
     ndc = clip[..., :3] / clip[..., 3:4]
     fx = width * (ndc[..., 0] + 1.0) * 0.5
     fy = height * (1.0 - ndc[..., 1]) * 0.5

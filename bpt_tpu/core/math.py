@@ -1,4 +1,4 @@
-"""Core vector math for the TPU-native bidirectional path tracer.
+"""Core vector math for the wavefront bidirectional path tracer.
 
 Everything here is batched, functional jnp code: vectors are arrays of shape
 (..., 3) and all helpers broadcast over leading batch dimensions.  The
@@ -99,15 +99,26 @@ def make_frame(n):
     return jnp.stack([s, t, n], axis=-2)
 
 
+def mat_vec(m, v):
+    """m @ v over the last axes, (..., n, k) x (..., k) -> (..., n), as
+    elementwise products and sums.  Not a dot_general: a GPU may run an
+    f32 matrix product in TF32 (10-bit mantissa), which would move ray
+    directions and frames by ~1e-3 relative."""
+    out = m[..., 0] * v[..., :1]
+    for j in range(1, v.shape[-1]):
+        out = out + m[..., j] * v[..., j:j + 1]
+    return out
+
+
 def frame_to_local(frame, v):
     """World -> local: (dot(v,s), dot(v,t), dot(v,n))
     (reference: core.h:158-160). frame is (..., 3, 3) rows (s,t,n)."""
-    return jnp.einsum("...ij,...j->...i", frame, v)
+    return mat_vec(frame, v)
 
 
 def frame_to_world(frame, v):
     """Local -> world: s*x + t*y + n*z (reference: core.h:161-163)."""
-    return jnp.einsum("...j,...ji->...i", v, frame)
+    return mat_vec(jnp.swapaxes(frame, -1, -2), v)
 
 
 def frame_n(frame):

@@ -1,6 +1,6 @@
 """Bidirectional path tracer with VCM-style recursive MIS weights.
 
-TPU-native wavefront reformulation of the reference BDPT (reference:
+Wavefront reformulation of the reference BDPT (reference:
 src/integrators/bdpt.h).  The recursive eye/light random walks become
 `lax.scan`s over a fixed depth bound with masked lanes; the per-pixel-mutex
 framebuffer splats (bdpt.h:360-370) become scatter-adds merged by `psum`
@@ -137,26 +137,26 @@ class LightVertexSlots(NamedTuple):
 # that bounds per-tile treelet unions is preserved.
 _CONNECT_SORT_G = 256
 
-# Light-vertex slot layout for the s>=2 connect phase, A/B'd on the real
-# chip (v5e, caustic bench 256x256@16spp rr8, r4 — all_pairs stage time):
-#   plain  slot-major flatten, slots in depth order   4.52M rays/s (2.81s)
-#   pack   + stable front-pack of valid slots/pixel   3.30M rays/s (5.07s)
-#   sort   + grouped dead-tile clustering (r3 design) 3.38M rays/s (4.88s)
-# The r3 design loses outright once the eye/light pairing is correct: the
-# per-sample argsort + 12-leaf take_along_axis of the slot pytree (pack)
-# and the per-depth eye-array gathers through the permutation (sort) cost
-# far more than the whole-dead-tile sweep skips save.  Default: plain;
-# BPT_CONNECT_LAYOUT overrides for re-runs.
+# Light-vertex slot layout for the s>=2 connect phase:
+#   plain  slot-major flatten, slots in depth order (default)
+#   pack   + stable front-pack of valid slots/pixel
+#   sort   + grouped dead-tile clustering
+# pack and sort spend a per-sample argsort + slot-pytree gather (pack)
+# and per-depth eye-array gathers through the permutation (sort) to make
+# whole tiles dead.  They are kept behind BPT_CONNECT_LAYOUT until they
+# are measured on the H100 (not measured there yet).
 import os as _os
 
 _CONNECT_LAYOUT = _os.environ.get("BPT_CONNECT_LAYOUT", "plain")
 assert _CONNECT_LAYOUT in ("plain", "pack", "sort")
 
 # Mega-connect: resolve ALL of a sample's connection segments (NEE +
-# camera + the full L x L all-pairs grid) in ONE compacted any-hit
+# camera + the full L x L all-pairs grid) in ONE any-hit
 # launch per sample (_mega_connect) instead of 3 launches per eye depth.
 # BPT_MEGA=0 restores the per-depth path for A/Bs; the lane budget caps
-# the L*L*B pair grid (deep RR walks fall back automatically).
+# the L*L*B pair grid (deep RR walks fall back automatically).  The 8M-lane
+# default was sized for a 16 GB device and has not been measured on the
+# H100.
 _MEGA = _os.environ.get("BPT_MEGA", "1") == "1"
 _MEGA_MAX_LANES = int(_os.environ.get("BPT_MEGA_MAX_LANES",
                                       str(8 * 1024 * 1024)))
@@ -323,7 +323,7 @@ def light_subpath_walk(scene, cam_consts, cfg: BDPTConfig, lkeys, b,
     splat_rgb pre-visibility and t1_ok (L,B) the lanes whose
     [camera -> slots.p] segment still needs an occlusion test (the
     mega-connect batch in render_sample resolves them all in one
-    compacted launch).
+    launch).
 
     Returns (slots: LightVertexSlots, splat_pixels (L,B), splat_rgb (L,B,3),
     ray_count[, t1_ok])."""
@@ -476,9 +476,8 @@ def _connect_to_light(scene, cfg: BDPTConfig, lkeys, it, lane, throughput,
 
     Visibility is DEFERRED: returns (li (B,3), ok (B,), end (B,3)) with
     li fully weighted but NOT occlusion-masked; the caller batches the
-    [it.p -> end] segments with the s>=2 segments into one compacted
-    trace launch per eye depth (one launch's fixed cost + jointly
-    compacted live lanes instead of two half-empty sweeps)."""
+    [it.p -> end] segments with the s>=2 segments into one trace launch
+    per eye depth (one launch's fixed cost instead of two)."""
     es = sample_emitter_position(scene, rng.lane_fold(lkeys, rng.NEE_WALK))
 
     l2e = it.p - es.pos
@@ -752,11 +751,8 @@ def _eye_post(scene, cam_consts, cfg: BDPTConfig, lk_eye, n_light, lv,
         # ---- s=1 NEE (bdpt.h:142) + s>=2 all-pairs (bdpt.h:145-149) ----
         # Both techniques' shading/MIS run with visibility DEFERRED, then
         # ALL their segments — (B,) NEE + (L*B,) slot-major all-pairs —
-        # resolve in ONE compacted trace launch per eye depth: per-trace
-        # fixed costs on TPU dwarf the per-lane work, and the joint batch
-        # compacts the (mostly-dead) lanes of both phases together
-        # (VERDICT r3 item 2: "fuse ... into ONE sweep launch per eye
-        # depth").
+        # resolve in ONE trace launch per eye depth, so per-launch fixed
+        # costs are paid once for both phases.
         nee_li = nee_ok = nee_end = None
         if cfg.connect_s1:
             nee_li, nee_ok, nee_end = _connect_to_light(
@@ -844,9 +840,8 @@ def _eye_post(scene, cam_consts, cfg: BDPTConfig, lk_eye, n_light, lv,
 # Fused walks (BPT_FUSED_WALKS=0 restores separate scans for A/Bs): the
 # mega-connect path runs BOTH subpath walks in ONE scan, so each depth
 # issues a single 2B-lane closest-hit launch (eye bounce rays ++ light
-# bounce rays) instead of two B-lane launches — per-launch fixed costs
-# (dispatch, compaction sorts) halve, and the cluster-keyed compaction
-# packs the joint batch.
+# bounce rays) instead of two B-lane launches, halving per-launch fixed
+# costs.
 _FUSED_WALKS = _os.environ.get("BPT_FUSED_WALKS", "1") == "1"
 
 
@@ -937,7 +932,7 @@ def render_sample(scene: SceneData, cam_consts, cfg: BDPTConfig, key,
     nrays = jnp.int32(b)
 
     # Mega-connect path (default on bdpt mode): ALL connection segments
-    # of the sample resolve in ONE compacted any-hit launch (see
+    # of the sample resolve in ONE any-hit launch (see
     # _mega_connect); when the pair grid exceeds the lane budget (deep
     # RR walks) it runs chunked over eye-depth rows instead — the
     # per-depth fallback only remains for BPT_MEGA=0 A/Bs.
@@ -1013,18 +1008,15 @@ def _mega_connect(scene, cam_consts, cfg: BDPTConfig,
                   eye_slots: LightVertexSlots,
                   light_slots: LightVertexSlots,
                   nee_li, nee_ok, nee_end, t1_pix, t1_rgb, t1_ok):
-    """Resolve EVERY connection segment of one sample in ONE compacted
+    """Resolve EVERY connection segment of one sample in ONE
     visibility launch: s=1 NEE (L*B), t=1 camera splats (L*B), and the
     full s>=2 all-pairs grid (L*L*B per-pixel eye-depth x light-slot
     pairs, the reference's nested loop bdpt.h:145-149).
 
     The walks run with visibility deferred (eye_subpath_walk
     defer_connect / light_subpath_walk defer_t1), so the whole sample
-    does exactly ONE any-hit launch over ~L(L+2)B lanes.  The global
-    sort-payload compaction (ops/compaction.py) packs the live ~15-30%
-    to the front; the sweep kernel's all-dead early-exit skips the
-    trailing tiles, so the launch pays one fixed cost + the live work —
-    instead of 3L launches each over mostly-dead lanes.
+    does exactly ONE any-hit launch over ~L(L+2)B lanes instead of 3L
+    launches each over mostly-dead lanes.
 
     When the full L*L*B pair grid exceeds the lane budget (deep RR
     walks: L = max_bounces), the grid is processed in CHUNKS of
@@ -1036,8 +1028,7 @@ def _mega_connect(scene, cam_consts, cfg: BDPTConfig,
 
     Pair lanes are built by BROADCAST (dense writes), never gather:
     eye arrays repeat along the light-slot axis, light arrays along the
-    eye-depth axis — TPU random gather sustains <1 GB/s, broadcasts run
-    at HBM write bandwidth.
+    eye-depth axis.
 
     Returns (li_connect (B,3), splat_pix (L*B,), splat_rgb (L*B,3),
     n_vis_rays)."""
@@ -1162,7 +1153,7 @@ def _pair_connect_chunked(scene, cfg: BDPTConfig,
 
     Used when the full L*L*B pair grid exceeds _MEGA_MAX_LANES (deep RR
     walks).  Each lax.scan step owns C eye-depth rows: it shades and
-    traces the C*L*B pair lanes of those rows in one compacted any-hit
+    traces the C*L*B pair lanes of those rows in one any-hit
     launch.  Light-vertex lane data is gathered once outside the scan
     (loop-invariant).  Returns (li (B,3), n_vis_rays)."""
     from ..scene.textures import albedo_at
@@ -1449,12 +1440,9 @@ def render_chunk(scene: SceneData, cam_consts, cfg: BDPTConfig, key,
 
     samples_per_batch: samples fused into one wavefront dispatch (lanes =
     sb * W * H), at the cost of proportional path-state memory.  Must
-    divide spp_chunk.  Re-swept r5 with compaction + mega-connect ON
-    (the r2 "flat in sb" finding predated both): sb=2 wins 5.49M vs
-    5.29M rays/s on the caustic bench (denser live lanes per compacted
-    launch); sb=4 hit a TPU worker fault at 256x256 (pair grids beyond
-    the chunk budget) — bench.py uses sb=2, the library default stays 1
-    (safe at any resolution)."""
+    divide spp_chunk.  The library default stays 1 (smallest memory at
+    any resolution); bench.py uses sb=2, a value not yet measured on the
+    H100."""
     w, h = cfg.width, cfg.height
     sb = samples_per_batch
     if spp_chunk % sb != 0:

@@ -9,7 +9,8 @@
 // end.  The numpy builder remains the correctness reference; this exists
 // for large scenes where Python-recursion build time matters.
 //
-// Build: make -C bpt_tpu/native   (produces libbpt_native.so)
+// Built at first use by native.py (or: make -C bpt_tpu/native), into
+// libbpt_native.so, which is not committed.
 
 #include <algorithm>
 #include <cstdint>

@@ -4,7 +4,7 @@ The reference's realtime mode is an SDL/OpenGL rasterizer with four
 passes — normal, simple (direct), SSAO, and vertex-baked GI (reference:
 src/core/renderpass.{h,cpp}, src/renderpasses/*) — that saves its FIRST
 frame to EXR (renderpass.cpp:65-80) and then redraws in a window loop.
-A rasterizer is the wrong tool on a TPU; the TPU-honest equivalent is a
+This renderer has no rasterizer; its equivalent is a
 progressive MONTE-CARLO frame loop over the same pass semantics:
 
   * each "frame" renders a low-spp estimate on-device and accumulates

@@ -1,4 +1,4 @@
-"""Scene assembly: OBJ/MTL -> flat device arrays + BVH (TPU-ready).
+"""Scene assembly: OBJ/MTL -> flat device arrays + BVH.
 
 Replaces the reference's Scene::load pipeline (reference:
 src/core/renderer.cpp:235-315) with a pre-gathered SoA representation:
@@ -216,13 +216,10 @@ def build_scene(obj: ObjData, tex_dir: str = "") -> tuple[SceneData, SceneMeta]:
     def padded(a, p):
         return np.concatenate([a.astype(p.dtype if p.ndim else a.dtype), p])
 
-    # K=128 treelets, both tables.  Measured on v5e (the caustic bench,
-    # benchmarks + /tmp sweeps r2): the one-hot closest kernel's matmul
-    # fetch cost per iteration is ~constant in K (S*9*(NT*K) = S*9*T)
-    # while its iteration count tracks the per-ray overlap count, which
-    # shrinks with K — K=128 beat K=64 by ~1.3x and K=256/512 regressed
-    # (selection work grows with K).  The sweep any-hit kernel at K=128
-    # beat the K=16 XLA tile-sweep 3.2x on the all-pairs workload.
+    # K=128 treelets, both tables.  Larger K means fewer treelets (a
+    # smaller (B, NT) slab matrix and fewer closest-hit iterations) but
+    # more triangle tests per fetched block.  K=128 is carried over from
+    # an earlier accelerator and has not been measured on the H100.
     tl = build_treelets(bvh, v0r.astype(np.float32),
                         e1.astype(np.float32), e2.astype(np.float32),
                         k=128)

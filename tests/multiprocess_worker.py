@@ -3,7 +3,7 @@ jax.distributed CPU run.
 
 Each process owns 2 virtual CPU devices (4 global); the sharded render
 runs over the GLOBAL mesh with the reduce_scatter framebuffer, so the
-cross-process collective path (Gloo on CPU, ICI/DCN on TPU pods) is
+cross-process collective path (Gloo on CPU, NCCL on GPUs) is
 actually executed.  Process 0 renders the same scene single-device and
 asserts agreement, then prints MULTIPROCESS_OK.
 """

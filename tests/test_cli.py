@@ -133,7 +133,7 @@ def test_checkpoint_partial_resume_matches_straight_run(tmp_path,
 @pytest.mark.parametrize("pass_type", ["gi", "ssao", "normal"])
 def test_cli_realtime_progressive(tmp_path, pass_type):
     """realtime=true scenes run the progressive-refinement frame loop
-    (the TPU analog of the reference's SDL/GL renderpass loop,
+    (the batch renderer's analog of the reference's SDL/GL renderpass loop,
     renderpass.cpp:65-137); the EXR is written from frame 1 onward."""
     toml_path = export_cornell_box(
         str(tmp_path / pass_type), width=16, height=16, spp=4, rr_depth=2,

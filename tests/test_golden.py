@@ -89,7 +89,7 @@ def test_cbox_full_gi_matches_reference_golden():
     Measured at this config (80x56@4spp CPU): ratio 0.902, median 0.106,
     p90 0.208.  The mean runs ~10% low at tiny spp because the RR-mode
     estimator is heavy-tailed (rare high-weight deep paths need more
-    samples); at 200x152@64spp on TPU the ratio is 1.016
+    samples); at 200x152@64spp the ratio is 1.016
     (PARITY_IMAGES.md).  Gates set to measured low-spp headroom; the
     tight-mean gate lives in benchmarks/golden_parity.py."""
     img = _render(CBOX_TOML, spp=4, rr_depth=2, no_rr=False,

@@ -5,8 +5,8 @@ must run, not just be typed).
 Spawns tests/multiprocess_worker.py twice with jax.distributed; the
 workers render a tiny scene sharded over the GLOBAL mesh with the
 reduce_scatter framebuffer, and process 0 asserts agreement with the
-single-device render.  On TPU pods the same code path initializes from
-the environment (parallel/mesh.py::init_distributed).
+single-device render.  On GPU hosts the same code path runs with NCCL
+collectives (parallel/mesh.py::init_distributed).
 """
 import os
 import socket

@@ -42,7 +42,7 @@ def test_tiny_render_all_modes():
 
 
 def test_mega_connect_matches_per_depth(monkeypatch):
-    """The mega-connect batch (one compacted launch per sample) is a
+    """The mega-connect batch (one any-hit launch per sample) is a
     TRACE-BATCHING change only: identical RNG, identical segments —
     images must match the per-depth path to float-reassociation
     tolerance."""
